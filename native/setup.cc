@@ -1,11 +1,11 @@
-// Native host-side setup runtime for mf_data_locality_tpu.
+// Native host-side setup runtime for mf_data_locality.
 //
 // The reference implements its entire host-side setup machinery in C++
 // (DoF/index construction: poisson_operator.h:183-267; locality renumbering:
 // renumber_dofs_for_mf.h; mesh generation: benchmark.h:66-89 via deal.II).
-// This library provides the same capabilities natively for the TPU framework:
-// the JAX/Pallas device path consumes precomputed index maps and geometry
-// arrays, and this code builds them at C++ speed for large meshes.
+// This library provides the same capabilities natively for the JAX package:
+// the device path consumes precomputed index maps and geometry arrays, and
+// this code builds them at C++ speed for large meshes.
 //
 // Exposed via a plain C ABI consumed through ctypes (no pybind11 dependency).
 
@@ -166,66 +166,6 @@ void build_boundary_mask(int64_t nz, int64_t ny, int64_t nx, uint8_t* out) {
         if (iz == 0 || iz == nz - 1 || iy == 0 || iy == ny - 1 || ix == 0 ||
             ix == nx - 1)
           out[(iz * ny + iy) * nx + ix] = 1;
-}
-
-// ---------------------------------------------------------------------------
-// Precomputed metric entries G = det(J) w J^{-1} J^{-T} at all tensor
-// quadrature points (the setup side of the precomputed-metric kernel;
-// poisson_operator.h:151-179 + do_invert :27-63 capability, hoisted).
-// coeffs: double[nc * 8 * 3] trilinear map coefficients per cell;
-// qp: double[q] 1D points; w3: double[q^3] tensor weights (z-major);
-// out: double[6 * q^3 * nc], rows entry-major (00, 01, 02, 11, 12, 22),
-// q-point minor-to-major (x fastest), cells in the minor dimension.
-// ---------------------------------------------------------------------------
-void metric_entries(const double* coeffs, int64_t nc, const double* qp,
-                    const double* w3, int32_t q, double* out) {
-  const int64_t q3 = (int64_t)q * q * q;
-  for (int64_t cell = 0; cell < nc; ++cell) {
-    const double* c = coeffs + cell * 24;  // (8, 3), coordinate minor
-    int64_t qi = 0;
-    for (int32_t iz = 0; iz < q; ++iz)
-      for (int32_t iy = 0; iy < q; ++iy)
-        for (int32_t ix = 0; ix < q; ++ix, ++qi) {
-          const double u = qp[ix], v = qp[iy], w = qp[iz];
-          double J[3][3];
-          for (int32_t d = 0; d < 3; ++d) {
-            J[d][0] = c[1 * 3 + d] + c[3 * 3 + d] * v + c[5 * 3 + d] * w +
-                      c[7 * 3 + d] * v * w;
-            J[d][1] = c[2 * 3 + d] + c[3 * 3 + d] * u + c[6 * 3 + d] * w +
-                      c[7 * 3 + d] * u * w;
-            J[d][2] = c[4 * 3 + d] + c[5 * 3 + d] * u + c[6 * 3 + d] * v +
-                      c[7 * 3 + d] * u * v;
-          }
-          double A[3][3];  // adjugate: J^{-1} = A / det
-          A[0][0] = J[1][1] * J[2][2] - J[1][2] * J[2][1];
-          A[0][1] = J[0][2] * J[2][1] - J[0][1] * J[2][2];
-          A[0][2] = J[0][1] * J[1][2] - J[0][2] * J[1][1];
-          A[1][0] = J[1][2] * J[2][0] - J[1][0] * J[2][2];
-          A[1][1] = J[0][0] * J[2][2] - J[0][2] * J[2][0];
-          A[1][2] = J[0][2] * J[1][0] - J[0][0] * J[1][2];
-          A[2][0] = J[1][0] * J[2][1] - J[1][1] * J[2][0];
-          A[2][1] = J[0][1] * J[2][0] - J[0][0] * J[2][1];
-          A[2][2] = J[0][0] * J[1][1] - J[0][1] * J[1][0];
-          const double det = J[0][0] * A[0][0] + J[0][1] * A[1][0] +
-                             J[0][2] * A[2][0];
-          const double s = w3[qi] / det;
-          const double g00 =
-              s * (A[0][0] * A[0][0] + A[0][1] * A[0][1] + A[0][2] * A[0][2]);
-          const double g01 =
-              s * (A[0][0] * A[1][0] + A[0][1] * A[1][1] + A[0][2] * A[1][2]);
-          const double g02 =
-              s * (A[0][0] * A[2][0] + A[0][1] * A[2][1] + A[0][2] * A[2][2]);
-          const double g11 =
-              s * (A[1][0] * A[1][0] + A[1][1] * A[1][1] + A[1][2] * A[1][2]);
-          const double g12 =
-              s * (A[1][0] * A[2][0] + A[1][1] * A[2][1] + A[1][2] * A[2][2]);
-          const double g22 =
-              s * (A[2][0] * A[2][0] + A[2][1] * A[2][1] + A[2][2] * A[2][2]);
-          const double ge[6] = {g00, g01, g02, g11, g12, g22};
-          for (int32_t e = 0; e < 6; ++e)
-            out[((int64_t)e * q3 + qi) * nc + cell] = ge[e];
-        }
-  }
 }
 
 }  // extern "C"

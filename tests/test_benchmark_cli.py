@@ -1,11 +1,10 @@
 """Benchmark harness smoke tests (CPU, tiny sizes)."""
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mf_data_locality_tpu import benchmark
+from mf_data_locality import benchmark
 
 
 def test_run_one_merged_structured():
@@ -17,6 +16,7 @@ def test_run_one_merged_structured():
     assert r.time_per_matvec > 0 and r.time_per_it > 0
     row = r.row()
     assert row.startswith(" 2 |  4 |")
+    assert row.endswith("| cpu")  # rows name the device they ran on
 
 
 def test_run_one_baseline_matches_merged_iterations():
@@ -45,38 +45,24 @@ def test_degree_dispatch_rejects_out_of_range(capsys):
         benchmark.main(["12"])
 
 
-@pytest.mark.skipif(len(jax.devices()) < 2, reason="needs 2 devices")
-def test_distributed_pallas_backend():
-    """Pallas kernel (interpret on CPU) inside the shard_map solve."""
-    from mf_data_locality_tpu.models import bp4
-    from mf_data_locality_tpu.parallel import distributed as dist
-
-    ref = bp4.build(3, 2, dtype=jnp.float64, backend="structured")
-    r1 = bp4.solve_merged(ref)
-    dp, mesh = dist.build_distributed(3, 2, n_devices=2, dtype=jnp.float64,
-                                      backend="pallas")
-    rd = dist.solve(dp, mesh, solver="merged")
-    assert int(rd.n_iterations) == int(r1.n_iterations)
-    xg = dist.gather_global(rd.x)
-    assert np.abs(xg.reshape(3, -1) - np.asarray(r1.x).reshape(3, -1)).max() \
-        < 1e-10 * np.abs(np.asarray(r1.x)).max()
+def test_measurement_refuses_cpu_device():
+    """The default (GPU) measurement path raises instead of falling back to
+    the CPU; the explicit CPU rehearsal accepts it."""
+    with pytest.raises(SystemExit, match="needs a gpu device"):
+        benchmark.device_identity("gpu")
+    with pytest.raises(SystemExit):
+        benchmark.main(["2", "3"])
+    assert benchmark.device_identity("cpu")[0] == "cpu"
 
 
-def test_run_one_pieces_split3_flags():
-    """Round-2 production flags flow through run_one end to end."""
-    r = benchmark.run_one(2, 3, solver="merged", dtype=jnp.float64,
-                          backend="pallas", precision="split3",
-                          windowing="pieces", solve_repeats=1,
-                          matvec_repeats=1, matvec_inner=2)
-    assert r.converged and r.n_dofs == 375
-
-
-def test_run_one_bf16_reduced_precision():
-    r = benchmark.run_one(2, 4, solver="merged", dtype=jnp.bfloat16,
-                          backend="pallas", precision="bf16",
-                          windowing="pieces", solve_repeats=1,
-                          matvec_repeats=1, matvec_inner=2)
-    assert r.converged
+def test_cli_cpu_rehearsal_labels_rows(capsys, monkeypatch, tmp_path):
+    # a set JAX_COMPILATION_CACHE_DIR leaves JAX's cache settings untouched
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    benchmark.main(["1", "2", "--platform", "cpu", "--dtype", "f64"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("# device: cpu")
+    assert out[1] == benchmark.HEADER
+    assert out[2].startswith(" 1 |  3 |") and out[2].endswith("| cpu")
 
 
 def test_run_one_distributed_reports_matvec_and_cells():
@@ -90,72 +76,4 @@ def test_run_one_distributed_reports_matvec_and_cells():
                                       backend="structured", solve_repeats=1,
                                       matvec_repeats=1, matvec_inner=2)
     assert r.n_cells == 8 and np.isfinite(r.time_per_matvec)
-    assert r.time_per_matvec > 0
-
-
-def test_resolve_factor_auto():
-    """factor='auto' picks the measured-optimal contraction per degree/rung
-    (R3_BATCH1, PROBE_TWOSTAGE, PROBE_DISPATCH2, PROBE_P4FACTOR)."""
-    from mf_data_locality_tpu.benchmark import resolve_factor, resolve_metric
-
-    # twostage for p>=5 on every rung
-    assert resolve_factor("auto", 5, "pieces") == "twostage"
-    assert resolve_factor("auto", 9, "pieces", precision="bf16") == "twostage"
-    # p=4: twostage on the f32-class split rungs (its onthefly rebuild won
-    # the interleaved A/B, PROBE_P4FACTOR)...
-    assert resolve_factor("auto", 4, "pieces", precision="split2m") == "twostage"
-    assert resolve_factor("auto", 4, "pieces", precision="split3") == "twostage"
-    # ...and that factor still resolves to the onthefly geometry
-    assert resolve_metric("auto", "fused", "pieces", "twostage", 4) == "onthefly"
-    # bf16 rung keeps dense at p=4 (dense 168.8 vs twostage 224.7)
-    assert resolve_factor("auto", 4, "pieces", precision="bf16") == "dense"
-    # 'highest' and non-fused solvers keep dense at p=4 (the win is
-    # onthefly's, which those paths don't engage)
-    assert resolve_factor("auto", 4, "pieces", precision="highest") == "dense"
-    assert resolve_factor("auto", 4, "pieces", solver="merged") == "dense"
-    # low degrees dense; non-pieces windowing always dense
-    assert resolve_factor("auto", 3, "pieces") == "dense"
-    assert resolve_factor("auto", 6, "reshape") == "dense"
-    # explicit choices pass through
-    assert resolve_factor("dense", 7, "pieces") == "dense"
-
-
-def test_resolve_metric_auto():
-    """metric='auto' picks onthefly exactly where it measured faster
-    (fused + pieces, p>=2 f32-class / p>=3 bf16 rung, both factorizations;
-    PROBE_DISPATCH.txt, PROBE_DISPATCH2.txt, PROBE_ODDQ.txt)."""
-    from mf_data_locality_tpu.benchmark import resolve_metric
-
-    assert resolve_metric("auto", "fused", "pieces", "dense", 4) == "onthefly"
-    assert resolve_metric("auto", "fused", "pieces", "dense", 2) == "onthefly"
-    # dense + padded odd-q rebuild is convergence-degraded (p=3 s=9 hits
-    # the cap vs f64's 95 — PROBE_PRODHIST.txt), so it keeps the stream
-    assert resolve_metric("auto", "fused", "pieces", "dense", 3) == "precomputed"
-    assert resolve_metric("auto", "fused", "pieces", "dense", 5) == "precomputed"
-    # ... but an explicit even quadrature override re-enables the rebuild
-    assert resolve_metric("auto", "fused", "pieces", "dense", 3,
-                          n_q=6) == "onthefly"
-    # twostage per-qz rebuild wins at every twostage degree (p=5..11)
-    # and stays in the +1..+2 iteration class at odd q
-    assert resolve_metric("auto", "fused", "pieces", "twostage", 6) == "onthefly"
-    assert resolve_metric("auto", "fused", "pieces", "twostage", 5) == "onthefly"
-    # p=1 measured slightly slower on both rungs
-    assert resolve_metric("auto", "fused", "pieces", "dense", 1) == "precomputed"
-    # bf16 rung: p=2 keeps the streamed metric (onthefly measured 159 vs 132)
-    assert resolve_metric("auto", "fused", "pieces", "dense", 2,
-                          precision="bf16") == "precomputed"
-    assert resolve_metric("auto", "fused", "pieces", "dense", 3,
-                          precision="bf16") == "precomputed"
-    assert resolve_metric("auto", "fused", "pieces", "twostage", 9,
-                          precision="bf16") == "onthefly"
-    assert resolve_metric("auto", "fused", "pieces", "dense", 4,
-                          precision="bf16") == "onthefly"
-    # 'highest' keeps its exact-f32 contract (onthefly Jacobian matmul is
-    # split3-class on TPU) unless the user forces the mode
-    assert resolve_metric("auto", "fused", "pieces", "dense", 4,
-                          precision="highest") == "precomputed"
-    # merged solver's lattice-form pieces matvec requires the streamed metric
-    assert resolve_metric("auto", "merged", "pieces", "dense", 4) == "precomputed"
-    # explicit choices pass through untouched
-    assert resolve_metric("onthefly", "fused", "pieces", "dense", 3) == "onthefly"
-    assert resolve_metric("precomputed", "fused", "pieces", "dense", 4) == "precomputed"
+    assert r.time_per_matvec > 0 and r.converged

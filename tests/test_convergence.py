@@ -11,11 +11,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mf_data_locality_tpu.mesh.box import BoxMesh
-from mf_data_locality_tpu.mesh.dofs import DofLayout
-from mf_data_locality_tpu.ops import laplace, rhs
-from mf_data_locality_tpu.ops.diagonal import compute_inverse_diagonal
-from mf_data_locality_tpu.solvers import cg_merged
+from mf_data_locality.mesh.box import BoxMesh
+from mf_data_locality.mesh.dofs import DofLayout
+from mf_data_locality.ops import laplace, rhs
+from mf_data_locality.ops.diagonal import compute_inverse_diagonal
+from mf_data_locality.solvers import cg_merged
 
 
 def u_exact(x):

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from mf_data_locality_tpu.mesh.box import BoxMesh
-from mf_data_locality_tpu.mesh.dofs import DofLayout
-from mf_data_locality_tpu.ops import diagonal, laplace
+from mf_data_locality.mesh.box import BoxMesh
+from mf_data_locality.mesh.dofs import DofLayout
+from mf_data_locality.ops import diagonal, laplace
 
 
 @pytest.mark.parametrize("s,p", [(0, 1), (1, 2), (3, 2), (0, 3), (1, 3), (0, 4), (0, 5)])

@@ -11,8 +11,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mf_data_locality_tpu.models import bp4
-from mf_data_locality_tpu.parallel import dist_general
+from mf_data_locality.models import bp4
+from mf_data_locality.parallel import dist_general
 
 
 def _single(s, p):

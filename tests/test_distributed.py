@@ -1,6 +1,6 @@
 """Distributed solves on 8 virtual CPU devices vs single-device reference.
 
-SURVEY.md §4(d): 1-chip vs N-chip results identical to roundoff using the same
+SURVEY.md §4(d): 1-device vs N-device results identical to roundoff using the same
 global mesh — the "multi-node testing without a cluster" strategy.
 """
 
@@ -9,8 +9,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mf_data_locality_tpu.models import bp4
-from mf_data_locality_tpu.parallel import distributed as dist
+from mf_data_locality.models import bp4
+from mf_data_locality.parallel import distributed as dist
 
 
 requires_8 = pytest.mark.skipif(len(jax.devices()) < 8,
@@ -21,11 +21,11 @@ requires_8 = pytest.mark.skipif(len(jax.devices()) < 8,
 @pytest.mark.parametrize("n_dev", [2, 4, 8])
 def test_distributed_merged_matches_single(n_dev):
     s, p = 9, 2  # ncz = 8 slabs available
-    ref = bp4.build(s, p, dtype=jnp.float64, backend="structured")
+    ref = bp4.build(s, p, dtype=jnp.float64)
     r1 = bp4.solve_merged(ref)
 
     dp, mesh = dist.build_distributed(s, p, n_devices=n_dev,
-                                      dtype=jnp.float64, backend="structured")
+                                      dtype=jnp.float64)
     rd = dist.solve(dp, mesh, solver="merged")
 
     assert int(rd.n_iterations) == int(r1.n_iterations)
@@ -38,11 +38,11 @@ def test_distributed_merged_matches_single(n_dev):
 @requires_8
 def test_distributed_baseline_matches_single():
     s, p = 9, 2
-    ref = bp4.build(s, p, dtype=jnp.float64, backend="structured")
+    ref = bp4.build(s, p, dtype=jnp.float64)
     r1 = bp4.solve_baseline(ref)
 
     dp, mesh = dist.build_distributed(s, p, n_devices=4,
-                                      dtype=jnp.float64, backend="structured")
+                                      dtype=jnp.float64)
     rd = dist.solve(dp, mesh, solver="baseline")
     assert int(rd.n_iterations) == int(r1.n_iterations)
     xg = dist.gather_global(rd.x).reshape(3, -1)
@@ -56,15 +56,15 @@ def test_distributed_matvec_matches_single():
     from jax.sharding import PartitionSpec as P
 
     s, p = 6, 3  # ncz = 4
-    ref = bp4.build(s, p, dtype=jnp.float64, backend="structured")
+    ref = bp4.build(s, p, dtype=jnp.float64)
     v1 = np.asarray(ref.a_apply_full(ref.b))
 
     dp, mesh = dist.build_distributed(s, p, n_devices=4,
-                                      dtype=jnp.float64, backend="structured")
+                                      dtype=jnp.float64)
 
     def body(op_stack, b):
         op_local = jax.tree.map(lambda x: x[0], op_stack)
-        out = dist.dist_vmult(op_local, b[0], n_dev=4, backend="structured",
+        out = dist.dist_vmult(op_local, b[0], n_dev=4,
                               constrained_identity=True)
         return out[None]
 
@@ -78,7 +78,7 @@ def test_distributed_matvec_matches_single():
 def test_replication_invariant_preserved():
     """After a solve, shared planes remain bit-replicated across devices."""
     dp, mesh = dist.build_distributed(9, 2, n_devices=8,
-                                      dtype=jnp.float64, backend="structured")
+                                      dtype=jnp.float64)
     rd = dist.solve(dp, mesh, solver="merged")
     x = np.asarray(rd.x)
     for d in range(1, 8):
@@ -91,63 +91,9 @@ def test_overlapped_halo_exchange_matches():
 
     (SURVEY.md §2 parallelism item 3: comm/compute overlap.)"""
     s, p, D = 12, 1, 4  # ncz = 16 -> 4 cell layers per device
-    dp, mesh = dist.build_distributed(s, p, n_devices=D, dtype=jnp.float64,
-                                      backend="structured")
+    dp, mesh = dist.build_distributed(s, p, n_devices=D, dtype=jnp.float64)
     r_plain = dist.solve(dp, mesh, solver="merged", max_iter=30)
     r_over = dist.solve(dp, mesh, solver="merged", max_iter=30, overlap=True)
-    assert int(r_plain.n_iterations) == int(r_over.n_iterations)
-    xp_ = np.asarray(r_plain.x)
-    xo = np.asarray(r_over.x)
-    assert np.abs(xp_ - xo).max() < 1e-12 * max(np.abs(xp_).max(), 1.0)
-
-
-@requires_8
-@pytest.mark.parametrize("n_dev", [2, 3, 4, 6])
-def test_distributed_pallas_matches_single(n_dev):
-    """Pallas-backend N-dev == 1-dev parity (interpret mode on CPU), incl.
-    non-divisible device counts: ncz=4 with n_dev=3 exercises a partially
-    dummy-padded trailing slab, n_dev=6 fully dummy slabs."""
-    s, p = 6, 2
-    ref = bp4.build(s, p, dtype=jnp.float64, backend="pallas")
-    r1 = bp4.solve_merged(ref)
-
-    dp, mesh = dist.build_distributed(s, p, n_devices=n_dev,
-                                      dtype=jnp.float64, backend="pallas")
-    rd = dist.solve(dp, mesh, solver="merged")
-
-    assert int(rd.n_iterations) == int(r1.n_iterations)
-    nz = (4 * p) + 1
-    xg = dist.gather_global(rd.x, nz=nz).reshape(3, -1)
-    x1 = np.asarray(r1.x).reshape(3, -1)
-    assert np.abs(xg - x1).max() < 1e-10 * max(np.abs(x1).max(), 1.0)
-
-
-@requires_8
-def test_distributed_pallas_matvec_matches_single():
-    """Slab-geometry surgery on the pallas path (replace_coeffs_pallas /
-    precomputed metric): one distributed vmult == single-device vmult."""
-    from jax.sharding import PartitionSpec as P
-
-    s, p, D = 6, 3, 4
-    ref = bp4.build(s, p, dtype=jnp.float64, backend="pallas")
-    lat = (3,) + ref.layout.n_nodes_axis
-    v1 = np.asarray(ref.a_apply_full(ref.b)).reshape(lat)
-
-    dp, mesh = dist.build_distributed(s, p, n_devices=D,
-                                      dtype=jnp.float64, backend="pallas")
-    mv = dist.dist_matvec_jit(dp, mesh)
-    vd = dist.gather_global(mv(dp.op_stack, dp.b))
-    assert np.abs(vd - v1).max() < 1e-12 * np.abs(v1).max()
-
-
-@requires_8
-def test_distributed_pallas_overlap_matches():
-    """Overlapped sub-operator slicing (gmetric included) on the pallas path."""
-    s, p, D = 9, 1, 2  # ncz = 8 -> 4 cell layers per device
-    dp, mesh = dist.build_distributed(s, p, n_devices=D, dtype=jnp.float64,
-                                      backend="pallas")
-    r_plain = dist.solve(dp, mesh, solver="merged", max_iter=15)
-    r_over = dist.solve(dp, mesh, solver="merged", max_iter=15, overlap=True)
     assert int(r_plain.n_iterations) == int(r_over.n_iterations)
     xp_ = np.asarray(r_plain.x)
     xo = np.asarray(r_over.x)
@@ -159,11 +105,11 @@ def test_distributed_pallas_overlap_matches():
 def test_distributed_arbitrary_device_count_structured(n_dev):
     """ncz=8 over 3/5/6/7 devices: dummy-padded slabs preserve exactness."""
     s, p = 9, 2
-    ref = bp4.build(s, p, dtype=jnp.float64, backend="structured")
+    ref = bp4.build(s, p, dtype=jnp.float64)
     r1 = bp4.solve_merged(ref, max_iter=25)
 
     dp, mesh = dist.build_distributed(s, p, n_devices=n_dev,
-                                      dtype=jnp.float64, backend="structured")
+                                      dtype=jnp.float64)
     rd = dist.solve(dp, mesh, solver="merged", max_iter=25)
     assert int(rd.n_iterations) == int(r1.n_iterations)
     nz = (8 * p) + 1
@@ -175,8 +121,7 @@ def test_distributed_arbitrary_device_count_structured(n_dev):
 @requires_8
 def test_overlap_fallback_small_slabs():
     """ncz_loc < 3 falls back to the plain path without error."""
-    dp, mesh = dist.build_distributed(9, 2, n_devices=8, dtype=jnp.float64,
-                                      backend="structured")
+    dp, mesh = dist.build_distributed(9, 2, n_devices=8, dtype=jnp.float64)
     r = dist.solve(dp, mesh, solver="merged", max_iter=10, overlap=True)
     assert int(r.n_iterations) == 10
 
@@ -188,10 +133,9 @@ def test_distributed_2d_matches_single(shape):
     sums resolve edge contributions implicitly); (3,2) exercises
     non-divisible padding in z."""
     s, p = 9, 2
-    ref = bp4.build(s, p, dtype=jnp.float64, backend="structured")
+    ref = bp4.build(s, p, dtype=jnp.float64)
     r1 = bp4.solve_merged(ref, max_iter=25)
-    dp, mesh = dist.build_distributed_2d(s, p, shape, dtype=jnp.float64,
-                                         backend="structured")
+    dp, mesh = dist.build_distributed_2d(s, p, shape, dtype=jnp.float64)
     rd = dist.solve_2d(dp, mesh, max_iter=25)
     assert int(rd.n_iterations) == int(r1.n_iterations)
     nzy = 8 * p + 1
@@ -201,24 +145,8 @@ def test_distributed_2d_matches_single(shape):
 
 
 @requires_8
-def test_distributed_2d_pallas_matches_single():
-    s, p, shape = 6, 2, (2, 2)
-    ref = bp4.build(s, p, dtype=jnp.float64, backend="pallas")
-    r1 = bp4.solve_merged(ref, max_iter=20)
-    dp, mesh = dist.build_distributed_2d(s, p, shape, dtype=jnp.float64,
-                                         backend="pallas")
-    rd = dist.solve_2d(dp, mesh, max_iter=20)
-    assert int(rd.n_iterations) == int(r1.n_iterations)
-    nzy = 4 * p + 1
-    xg = dist.gather_global_2d(rd.x, nz=nzy, ny=nzy).reshape(3, -1)
-    x1 = np.asarray(r1.x).reshape(3, -1)
-    assert np.abs(xg - x1).max() < 1e-10 * max(np.abs(x1).max(), 1.0)
-
-
-@requires_8
 def test_distributed_2d_replication_invariant():
-    dp, mesh = dist.build_distributed_2d(9, 2, (2, 4), dtype=jnp.float64,
-                                         backend="structured")
+    dp, mesh = dist.build_distributed_2d(9, 2, (2, 4), dtype=jnp.float64)
     rd = dist.solve_2d(dp, mesh, max_iter=15)
     x = np.asarray(rd.x)
     for dz in range(2):
@@ -236,100 +164,12 @@ def test_distributed_3d_matches_single(shape):
     """Full 3D decomposition: three sequential per-axis halo sums resolve
     edges AND corners implicitly; (3,2,1) exercises non-divisible padding."""
     s, p = 6, 2  # mesh (4, 4, 4)
-    ref = bp4.build(s, p, dtype=jnp.float64, backend="structured")
+    ref = bp4.build(s, p, dtype=jnp.float64)
     r1 = bp4.solve_merged(ref, max_iter=20)
-    dp, mesh = dist.build_distributed_3d(s, p, shape, dtype=jnp.float64,
-                                         backend="structured")
+    dp, mesh = dist.build_distributed_3d(s, p, shape, dtype=jnp.float64)
     rd = dist.solve_3d(dp, mesh, max_iter=20)
     assert int(rd.n_iterations) == int(r1.n_iterations)
     nn = 4 * p + 1
     xg = dist.gather_global_3d(rd.x, nz=nn, ny=nn, nx=nn).reshape(3, -1)
     x1 = np.asarray(r1.x).reshape(3, -1)
     assert np.abs(xg - x1).max() < 1e-10 * max(np.abs(x1).max(), 1.0)
-
-
-@requires_8
-def test_distributed_3d_pallas_matches_single():
-    s, p, shape = 6, 2, (2, 2, 2)
-    ref = bp4.build(s, p, dtype=jnp.float64, backend="pallas")
-    r1 = bp4.solve_merged(ref, max_iter=15)
-    dp, mesh = dist.build_distributed_3d(s, p, shape, dtype=jnp.float64,
-                                         backend="pallas")
-    rd = dist.solve_3d(dp, mesh, max_iter=15)
-    assert int(rd.n_iterations) == int(r1.n_iterations)
-    nn = 4 * p + 1
-    xg = dist.gather_global_3d(rd.x, nz=nn, ny=nn, nx=nn).reshape(3, -1)
-    x1 = np.asarray(r1.x).reshape(3, -1)
-    assert np.abs(xg - x1).max() < 1e-10 * max(np.abs(x1).max(), 1.0)
-
-
-@requires_8
-def test_distributed_pieces_nondivisible_and_overlap():
-    """pieces windowing under slab surgery: non-divisible device count
-    (partial dummy-padded slab) and the overlapped sub-operator path."""
-    s, p = 9, 1  # ncz = 8
-    ref = bp4.build(s, p, dtype=jnp.float64, backend="pallas",
-                    windowing="pieces")
-    r1 = bp4.solve_merged(ref, max_iter=15)
-
-    dp, mesh = dist.build_distributed(s, p, n_devices=3, dtype=jnp.float64,
-                                      backend="pallas", windowing="pieces")
-    rd = dist.solve(dp, mesh, solver="merged", max_iter=15)
-    assert int(rd.n_iterations) == int(r1.n_iterations)
-    nz = 8 * p + 1
-    xg = dist.gather_global(rd.x, nz=nz).reshape(3, -1)
-    x1 = np.asarray(r1.x).reshape(3, -1)
-    assert np.abs(xg - x1).max() < 1e-10 * max(np.abs(x1).max(), 1.0)
-
-    dp2, mesh2 = dist.build_distributed(s, p, n_devices=2, dtype=jnp.float64,
-                                        backend="pallas", windowing="pieces")
-    r_over = dist.solve(dp2, mesh2, solver="merged", max_iter=15, overlap=True)
-    assert int(r_over.n_iterations) == int(r1.n_iterations)
-    xo = dist.gather_global(r_over.x, nz=nz).reshape(3, -1)
-    assert np.abs(xo - x1).max() < 1e-10 * max(np.abs(x1).max(), 1.0)
-
-
-@requires_8
-def test_distributed_2d_pallas_nondivisible_y():
-    """Regression: a short y slab must pad per-axis BEFORE flattening the
-    cell geometry (misaligned Jacobians were silently wrong)."""
-    s, p = 6, 2  # mesh (4, 4, 4): Dy=3 leaves a short y slab
-    ref = bp4.build(s, p, dtype=jnp.float64, backend="pallas")
-    r1 = bp4.solve_merged(ref, max_iter=20)
-    dp, mesh = dist.build_distributed_2d(s, p, (2, 3), dtype=jnp.float64,
-                                         backend="pallas")
-    rd = dist.solve_2d(dp, mesh, max_iter=20)
-    assert int(rd.n_iterations) == int(r1.n_iterations)
-    nn = 4 * p + 1
-    xg = dist.gather_global_2d(rd.x, nz=nn, ny=nn).reshape(3, -1)
-    x1 = np.asarray(r1.x).reshape(3, -1)
-    assert np.abs(xg - x1).max() < 1e-10 * max(np.abs(x1).max(), 1.0)
-
-
-@requires_8
-@pytest.mark.parametrize("windowing", ["zslab", "matmul"])
-def test_overlap_with_windowing_modes(windowing):
-    """Regression: overlapped sub-operators must slice the windowing
-    operands (mask_w / z window matrix) to the z sub-range."""
-    s, p, D = 9, 1, 2  # ncz = 8 -> 4 layers per device, overlap active
-    dp, mesh = dist.build_distributed(s, p, n_devices=D, dtype=jnp.float64,
-                                      backend="pallas", windowing=windowing)
-    r_plain = dist.solve(dp, mesh, solver="merged", max_iter=15)
-    r_over = dist.solve(dp, mesh, solver="merged", max_iter=15, overlap=True)
-    assert int(r_plain.n_iterations) == int(r_over.n_iterations)
-    xp_ = np.asarray(r_plain.x)
-    xo = np.asarray(r_over.x)
-    assert np.abs(xp_ - xo).max() < 1e-12 * max(np.abs(xp_).max(), 1.0)
-
-
-@requires_8
-def test_distributed_bf16_storage_matches_single():
-    """bf16 operator-stream storage under the distributed solver: same
-    iteration count as the single-device bf16 run."""
-    ref = bp4.build(6, 2, dtype=jnp.bfloat16, backend="pallas")
-    r1 = bp4.solve_merged(ref, rel_tol=1e-6)
-    dp, mesh = dist.build_distributed(6, 2, n_devices=4,
-                                      dtype=jnp.bfloat16, backend="pallas")
-    rd = dist.solve(dp, mesh, solver="merged", rel_tol=1e-6)
-    assert bool(rd.converged)
-    assert int(rd.n_iterations) == int(r1.n_iterations)

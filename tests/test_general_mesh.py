@@ -12,12 +12,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mf_data_locality_tpu.mesh.dofs import DofLayout
-from mf_data_locality_tpu.mesh.box import BoxMesh
-from mf_data_locality_tpu.mesh.general import macro_hex_layout
-from mf_data_locality_tpu.ops import diagonal, laplace
-from mf_data_locality_tpu.parallel import dist_general
-from mf_data_locality_tpu.solvers import cg_merged
+from mf_data_locality.mesh.dofs import DofLayout
+from mf_data_locality.mesh.box import BoxMesh
+from mf_data_locality.mesh.general import macro_hex_layout
+from mf_data_locality.ops import diagonal, laplace
+from mf_data_locality.parallel import dist_general
+from mf_data_locality.solvers import cg_merged
 
 
 def _warp(pts):

@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mf_data_locality_tpu.ops import laplace2d as l2
+from mf_data_locality.ops import laplace2d as l2
 
 
 @pytest.mark.parametrize("nc,p", [((2, 2), 1), ((3, 2), 2), ((2, 3), 3), ((4, 4), 2)])
@@ -38,7 +38,7 @@ def test_vmult2d_symmetry_and_nullspace():
 
 
 def test_2d_cg_solve():
-    from mf_data_locality_tpu.solvers import cg_merged
+    from mf_data_locality.solvers import cg_merged
 
     mesh = l2.BoxMesh2D(n_cells_axis=(8, 8), spacing=1 / 8)
     layout = l2.DofLayout2D(mesh, 2)

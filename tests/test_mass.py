@@ -4,9 +4,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mf_data_locality_tpu.mesh.box import BoxMesh
-from mf_data_locality_tpu.mesh.dofs import DofLayout
-from mf_data_locality_tpu.ops import lagrange, mass
+from mf_data_locality.mesh.box import BoxMesh
+from mf_data_locality.mesh.dofs import DofLayout
+from mf_data_locality.ops import lagrange, mass
 
 
 def dense_mass(layout, n_q=None):

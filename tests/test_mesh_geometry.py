@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from mf_data_locality_tpu.mesh import box, manifold
-from mf_data_locality_tpu.ops import geometry
+from mf_data_locality.mesh import box, manifold
+from mf_data_locality.ops import geometry
 
 
 def test_manifold_roundtrip():

@@ -1,13 +1,14 @@
 """Native C++ setup library vs NumPy reference paths, and renumbering."""
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mf_data_locality_tpu import native
-from mf_data_locality_tpu.mesh import renumber
-from mf_data_locality_tpu.mesh.box import BoxMesh
-from mf_data_locality_tpu.mesh.dofs import DofLayout
-from mf_data_locality_tpu.ops.geometry import trilinear_coefficients
+from mf_data_locality import native
+from mf_data_locality.mesh import renumber
+from mf_data_locality.mesh.box import BoxMesh
+from mf_data_locality.mesh.dofs import DofLayout
+from mf_data_locality.ops.geometry import trilinear_coefficients
 
 needs_native = pytest.mark.skipif(not native.AVAILABLE,
                                   reason="native library not built")
@@ -70,9 +71,7 @@ def test_renumber_is_permutation_and_groups():
 
 def test_renumbered_operator_is_equivalent():
     """The general operator commutes with node renumbering."""
-    import jax.numpy as jnp
-
-    from mf_data_locality_tpu.ops import laplace
+    from mf_data_locality.ops import laplace
 
     layout = DofLayout(BoxMesh.from_s(3), 2)
     op = laplace.make_operator(layout, dtype=jnp.float64)
@@ -143,29 +142,3 @@ def test_cellbatch_touch_count_grouping_partial():
     cls0 = touch_b <= 1
     assert perm[cls0].max() == cls0.sum() - 1
 
-
-@needs_native
-def test_native_metric_entries_matches_numpy():
-    """Native metric precompute == NumPy reference (f64 exact-ish)."""
-    from mf_data_locality_tpu.ops import lagrange
-    from mf_data_locality_tpu.ops.geometry import trilinear_coefficients
-    from mf_data_locality_tpu.ops.laplace_pallas import _metric_entries
-
-    layout = DofLayout(BoxMesh.from_s(5), 3)
-    coeffs = trilinear_coefficients(layout.mesh.cell_vertices)
-    shape = lagrange.make_shape(3, 5)
-    w = shape.q_weights
-    w3 = (w[:, None, None] * w[None, :, None] * w[None, None, :]).reshape(-1, 1)
-
-    g_native = native.metric_entries(coeffs, shape.q_points, w3)
-
-    # NumPy reference path (bypass the native dispatch inside _metric_entries)
-    import mf_data_locality_tpu.native as nat
-    avail = nat.AVAILABLE
-    try:
-        nat.AVAILABLE = False
-        g_np = _metric_entries(coeffs, shape.q_points, w3)
-    finally:
-        nat.AVAILABLE = avail
-    assert g_native.shape == g_np.shape
-    assert np.max(np.abs(g_native - g_np)) < 1e-13 * np.max(np.abs(g_np))

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from mf_data_locality_tpu.ops import lagrange, quadrature
+from mf_data_locality.ops import lagrange, quadrature
 
 
 @pytest.mark.parametrize("n", range(1, 14))

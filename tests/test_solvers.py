@@ -9,9 +9,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mf_data_locality_tpu.models import bp4
-from mf_data_locality_tpu.ops import laplace
-from mf_data_locality_tpu.solvers import cg, cg_merged
+from mf_data_locality.models import bp4
+from mf_data_locality.ops import laplace
+from mf_data_locality.solvers import cg, cg_merged
 
 
 @pytest.fixture(scope="module")
@@ -94,3 +94,55 @@ def test_iteration_counts_reasonable(problem):
     """BP4 with blocked-Jacobi should converge well under the 100-iter cap."""
     res = bp4.solve_merged(problem)
     assert 5 < int(res.n_iterations) < 100
+
+
+def test_merged_cg_x0_start():
+    """Nonzero x0: g0 = A x0 - b (solver_cg_optimized.h:221-228)."""
+    prob = bp4.build(s=4, degree=2, dtype=jnp.float64, backend="structured")
+    r_ref = bp4.solve_merged(prob, rel_tol=1e-10)
+    rng = np.random.default_rng(3)
+    # constraint-consistent start: zero on Dirichlet DoFs (the reference
+    # passes vectors with constraints already applied, benchmark.h:170-176)
+    free = ~prob.layout.boundary_node_mask
+    x0 = jnp.asarray(rng.standard_normal(prob.b.shape) * 0.1 * free[None, :])
+    r_x0 = cg_merged.merged_cg_solve(prob.a_apply, prob.b, prob.inv_diag,
+                                     x0=x0, rel_tol=1e-10)
+    assert bool(r_x0.converged)
+    # same linear system -> same solution to solver tolerance
+    err = float(jnp.max(jnp.abs(r_x0.x - r_ref.x)))
+    scale = float(jnp.max(jnp.abs(r_ref.x)))
+    assert err < 1e-7 * scale
+    # warm start from the exact solution: the initial residual must reflect
+    # g = A x0 - b ~ 0 (tolerance stays RELATIVE to it, ReductionControl
+    # semantics, so the iteration count need not be small)
+    r_warm = cg_merged.merged_cg_solve(prob.a_apply, prob.b, prob.inv_diag,
+                                       x0=r_ref.x, rel_tol=1e-8)
+    res0_cold = float(r_ref.res_history[0])
+    res0_warm = float(r_warm.res_history[0])
+    assert res0_warm < 1e-8 * res0_cold
+
+
+def test_baseline_cg_x0_matches_merged_x0():
+    prob = bp4.build(s=4, degree=2, dtype=jnp.float64, backend="structured")
+    rng = np.random.default_rng(4)
+    free = ~prob.layout.boundary_node_mask
+    x0 = jnp.asarray(rng.standard_normal(prob.b.shape) * 0.1 * free[None, :])
+    r_b = cg.cg_solve(prob.a_apply_full, prob.b, prob.inv_diag, x0=x0,
+                      rel_tol=1e-10)
+    r_m = cg_merged.merged_cg_solve(prob.a_apply, prob.b, prob.inv_diag,
+                                    x0=x0, rel_tol=1e-10)
+    assert bool(r_b.converged) and bool(r_m.converged)
+    assert int(r_b.n_iterations) == int(r_m.n_iterations)
+
+
+def test_f32_iteration_parity_vs_f64():
+    """f32 iteration counts of the structured path track f64 at a convergent
+    size."""
+    for p, s in [(2, 6), (3, 5)]:
+        r64 = bp4.solve_merged(bp4.build(s=s, degree=p, dtype=jnp.float64),
+                               rel_tol=1e-8)
+        r32 = bp4.solve_merged(bp4.build(s=s, degree=p, dtype=jnp.float32),
+                               rel_tol=1e-8)
+        assert bool(r64.converged) and bool(r32.converged)
+        it64, it32 = int(r64.n_iterations), int(r32.n_iterations)
+        assert abs(it64 - it32) <= max(1, round(0.03 * it64)), (it64, it32)

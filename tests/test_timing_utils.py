@@ -2,75 +2,25 @@
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
-from mf_data_locality_tpu.utils import profiling, timing
-
-
-def test_round_trip_latency_positive_and_cached():
-    lat1 = timing.round_trip_latency(refresh=True)
-    lat2 = timing.round_trip_latency()
-    assert lat1 > 0 and lat1 == lat2  # cached
-
-
-def test_latency_recheck_flags_contaminated_cache():
-    # simulate the round-4 failure mode: a busy host inflated the cached
-    # latency; the post-run recheck must flag it (VERDICT r4 weak 4)
-    real = timing.round_trip_latency(refresh=True)
-    timing._LATENCY = real * 10 + 1.0  # contaminated cache
-    ok, cached, fresh = timing.latency_recheck()
-    assert not ok and cached > fresh
-    # and the fresh value is re-cached for whatever is timed next
-    assert timing.round_trip_latency() == fresh
-
-
-def test_latency_recheck_passes_on_stable_host():
-    timing.round_trip_latency(refresh=True)
-    ok, cached, fresh = timing.latency_recheck(tol=0.9)
-    assert ok and fresh > 0
+from mf_data_locality.utils import profiling, timing
 
 
 def test_time_min_fetch_measures_something():
     x = jnp.ones((1000,))
     f = jax.jit(lambda v: jnp.sum(v * 2.0))
-    t = timing.time_min_fetch(lambda: f(x), repeats=2)
+    t = timing.time_min(lambda: f(x), repeats=2)
     assert t > 0
 
 
 def test_time_scan_fetch_shape_preserving_step():
     x = jnp.ones((64, 64))
-    t = timing.time_scan_fetch(lambda v: v * 1.0001, x, inner=5, repeats=2)
+    t = timing.time_scan(lambda v: v * 1.0001, x, inner=5, repeats=2)
     assert t > 0
-
-
-def test_scan_chain_pair_floor_slope_protocol():
-    # the floor-based A/B protocol: alternating (t_L, t_2L) samples,
-    # per-chain-length minima across rounds, then one slope — the sampler
-    # must be re-invocable and both floors positive
-    x = jnp.ones((64, 64))
-    sample = timing.scan_chain_pair(lambda v: v * 1.0001, x,
-                                    inner=5, repeats=2)
-    s1a, s2a = sample()
-    s1b, s2b = sample()
-    t1, t2 = min(s1a, s1b), min(s2a, s2b)
-    assert t1 > 0 and t2 > 0
-    t = timing.slope_of_floors(t1, t2, inner=5)
+    # extra operands travel as arguments of the chained step
+    t = timing.time_scan(lambda v, w: v * w, x, inner=5, repeats=2,
+                         args=(jnp.full((64, 64), 1.0001),))
     assert t > 0
-
-
-def test_time_pair_fetch_alternates_and_corrects():
-    f1 = jax.jit(lambda v: jnp.sum(v))
-    f2 = jax.jit(lambda v: jnp.sum(v * 2.0))
-    x = jnp.ones((256,))
-    t1, t2 = timing.time_pair_fetch(lambda: f1(x), lambda: f2(x), repeats=2)
-    assert t1 > 0 and t2 > 0
-
-
-def test_slope_of_floors_degenerate_fallback():
-    # non-positive slope (jitter floor) must fall back to the long-chain
-    # quotient, never return <= 0
-    timing.round_trip_latency(refresh=True)
-    assert timing.slope_of_floors(1.0, 0.5, inner=10) == 0.5 / 20
 
 
 def test_bandwidth_measurement_plausible():

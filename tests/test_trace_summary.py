@@ -1,28 +1,43 @@
 """utils.trace_summary: offline trace aggregation on a synthetic trace."""
 
-import gzip
-import json
 import os
 
-from mf_data_locality_tpu.utils import trace_summary
+from jax.profiler import ProfileData
+
+from mf_data_locality.utils import trace_summary
+
+# one GPU plane with a per-kernel stream line and the per-HLO-op line, and a
+# host plane whose events must not count
+_XSPACE = """
+planes {
+  id: 1 name: "/device:GPU:0"
+  lines { id: 1 name: "Stream #13(Compute)" timestamp_ns: 1000
+    events { metadata_id: 1 offset_ps: 0 duration_ps: 7000000 }
+    events { metadata_id: 2 offset_ps: 9000000 duration_ps: 40000000 }
+  }
+  lines { id: 2 name: "XLA Ops" timestamp_ns: 1000
+    events { metadata_id: 1 offset_ps: 0 duration_ps: 10000000 }
+    events { metadata_id: 1 offset_ps: 20000000 duration_ps: 5000000 }
+    events { metadata_id: 2 offset_ps: 30000000 duration_ps: 40000000 }
+  }
+  event_metadata { key: 1 value { id: 1 name: "copy.1" } }
+  event_metadata { key: 2 value { id: 2 name: "fusion.7" } }
+}
+planes {
+  id: 2 name: "/host:CPU"
+  lines { id: 1 name: "python"
+    events { metadata_id: 1 offset_ps: 0 duration_ps: 99000000 }
+  }
+  event_metadata { key: 1 value { id: 1 name: "copy.9" } }
+}
+"""
 
 
-def _write_trace(tmp_path):
-    events = [
-        {"ph": "M", "pid": 1, "name": "process_name",
-         "args": {"name": "/device:TPU:0"}},
-        {"ph": "M", "pid": 2, "name": "process_name",
-         "args": {"name": "Host threads"}},
-        {"ph": "X", "pid": 1, "name": "copy.1", "dur": 10.0, "ts": 0},
-        {"ph": "X", "pid": 1, "name": "copy.1", "dur": 5.0, "ts": 20},
-        {"ph": "X", "pid": 1, "name": "fusion.7", "dur": 40.0, "ts": 30},
-        # host-track event must be excluded
-        {"ph": "X", "pid": 2, "name": "copy.9", "dur": 99.0, "ts": 0},
-    ]
+def _write_trace(tmp_path, text=_XSPACE):
     d = os.path.join(tmp_path, "plugins", "profile", "run1")
     os.makedirs(d)
-    with gzip.open(os.path.join(d, "host.trace.json.gz"), "wt") as f:
-        json.dump({"traceEvents": events}, f)
+    with open(os.path.join(d, "host.xplane.pb"), "wb") as f:
+        f.write(ProfileData.text_proto_to_serialized_xspace(text))
     return str(tmp_path)
 
 
@@ -32,6 +47,10 @@ def test_op_durations_and_matching(tmp_path):
     assert durs == {"copy.1": 15.0, "fusion.7": 40.0}
     assert trace_summary.total_matching(d, "copy.") == 15.0
     assert trace_summary.top_ops(d, 1) == [("fusion.7", 40.0)]
+    # without an "XLA Ops" line the stream (kernel) lines are read
+    no_ops = _XSPACE.replace('name: "XLA Ops"', 'name: "XLA Modules"')
+    d2 = _write_trace(tmp_path / "b", no_ops)
+    assert trace_summary.op_durations(d2) == {"copy.1": 7.0, "fusion.7": 40.0}
 
 
 def test_empty_dir(tmp_path):

@@ -1,7 +1,7 @@
 """Functional-transform capabilities: autodiff and vmap through the stack.
 
 These have no counterpart in the C++ reference — they come from building
-TPU-native on JAX: the operator is a pure function, so differentiation,
+on JAX: the operator is a pure function, so differentiation,
 batching and jit composition are free.  Pinned here as part of the public
 contract.
 """
@@ -11,8 +11,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mf_data_locality_tpu.models import bp4
-from mf_data_locality_tpu.solvers import cg_merged
+from mf_data_locality.models import bp4
+from mf_data_locality.solvers import cg_merged
 
 
 @pytest.fixture(scope="module")
